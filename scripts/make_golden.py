@@ -16,8 +16,8 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.ops.render import render_jax
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.ops.render import render_jax
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "golden")
 

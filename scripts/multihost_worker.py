@@ -1,18 +1,18 @@
 """One process of a multi-process SPMD render/fit job (BASELINE.json:11).
 
-Run directly on each host of a pod slice, or locally via
+Run directly on each host of a multi-host job, or locally via
 ``parallel.launch.launch_local_processes`` (CPU simulation). Asserts that
 the sharded render matches the replicated scene on every process and runs
 one sharded fit step with the cross-process grad psum.
 
-Timed mode (VERDICT r3 item 6 — the DCN-analogue path was correctness-
-tested but never timed): set ``WORKER_TIME_K`` > 0 and each process also
-measures the sharded fwd+bwd step at a work-dominated config
-(``WORKER_TIME_H/W/OCTAVES``, default 512x512x3 — the same shape as
-bench.py --mesh) with the salted fori differencing discipline, and prints a
-``TIMED {json}`` line. On this 2-core machine the number is a CPU/DCN-
-analogue step cost (collectives ride localhost gRPC, capacity is
-core-capped); on a pod the same code path times real DCN.
+Timed mode: set ``WORKER_TIME_K`` > 0 and each process also measures the
+sharded fwd+bwd step at a work-dominated config (``WORKER_TIME_H/W/OCTAVES``,
+default 512x512x3 — the same shape as bench.py --mesh) with the salted fori
+differencing, and prints a ``TIMED {json}`` line. On CPU processes the
+number is a localhost-collective step cost, not a device rate.
+
+The worker runs on the CPU unless ``JAX_PLATFORMS`` names another platform
+(e.g. ``cuda``); RenderConfig then picks the path for that platform.
 """
 
 import os
@@ -22,17 +22,17 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-if os.environ.get("JAX_PLATFORMS", "") != "tpu":
+if os.environ.get("JAX_PLATFORMS", "cpu") == "cpu":
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import optax
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.ops.fit import partition_scene
-from gpgpuraytrace_tpu.parallel.launch import distributed_context
-from gpgpuraytrace_tpu.parallel.mesh import make_mesh
-from gpgpuraytrace_tpu.parallel.sharded import (
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.ops.fit import partition_scene
+from gpgpuraytrace.parallel.launch import distributed_context
+from gpgpuraytrace.parallel.mesh import make_mesh
+from gpgpuraytrace.parallel.sharded import (
     make_sharded_fit_step,
     shard_target,
     sharded_render,
@@ -81,7 +81,7 @@ def _timed_step(mesh, K: int) -> None:
     import json
     import time
 
-    from gpgpuraytrace_tpu.parallel.sharded import (
+    from gpgpuraytrace.parallel.sharded import (
         _sharded_loss_and_grad_body,
         shard_target,
     )
@@ -91,7 +91,6 @@ def _timed_step(mesh, K: int) -> None:
     octaves = int(os.environ.get("WORKER_TIME_OCTAVES", "3"))
     cfg = RenderConfig(
         height=h, width=w, max_steps=128, num_octaves=octaves,
-        use_pallas=os.environ.get("JAX_PLATFORMS", "") == "tpu",
     )
     scene = default_scene(num_octaves=octaves)
     leaves, merge = partition_scene(scene, trainable=lambda name: True)
@@ -121,18 +120,15 @@ def _timed_step(mesh, K: int) -> None:
         return time.perf_counter() - t0
 
     # Salt base: must be IDENTICAL across the SPMD processes of one job
-    # (divergent args under collectives would be garbage), unique across
-    # jobs (identical schedules replay from the tunnel cache — bench.py).
-    # The launcher computes it once and passes it via WORKER_SALT_BASE;
-    # direct pod invocation falls back to a job-wide derivation from the
-    # coordinator address + a coarse time bucket (NOT pid — that differs
-    # per process) so two identically-launched jobs still get distinct
-    # schedules instead of silently replaying each other.
+    # (divergent args under collectives would be garbage). The launcher
+    # computes it once and passes it via WORKER_SALT_BASE; direct
+    # invocation falls back to a job-wide derivation from the coordinator
+    # address + a coarse time bucket (NOT pid — that differs per process).
     env_base = os.environ.get("WORKER_SALT_BASE")
     if env_base is not None:
         base = float(env_base)
     else:
-        from gpgpuraytrace_tpu.utils.timing import job_salt_base
+        from gpgpuraytrace.utils.timing import job_salt_base
 
         base = job_salt_base(
             os.environ.get("JAX_COORDINATOR_ADDRESS", "local")

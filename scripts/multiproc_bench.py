@@ -1,16 +1,14 @@
-"""Timed 2-process × 4-device SPMD fwd+bwd step (VERDICT r3 item 6).
+"""Timed 2-process × 4-device SPMD fwd+bwd step on the CPU.
 
-Launches the multihost worker in timed mode over localhost (the DCN-analogue
-wiring jax.distributed uses on a pod, with gRPC over loopback standing in
-for the data-center network) and prints ONE JSON line with each process's
-measured sharded fwd+bwd step cost.
+Launches the multihost worker in timed mode over localhost (the wiring
+jax.distributed uses across hosts, with gRPC over loopback standing in for
+the network) and prints ONE JSON line with each process's measured sharded
+fwd+bwd step cost.
 
-What the number means on THIS machine: 2 processes × 4 virtual CPU devices
-time-slice 2 physical cores, so the step cost is core-capped capacity + the
-full multi-process SPMD machinery (per-step cross-process psum included) —
-an upper bound on the machinery's cost, not an ICI/DCN measurement. Record
-it next to the virtual-mesh table (BASELINE.md "Scaling evidence"); on a pod
-the same flag times the real fabric.
+What the number means: 2 processes × 4 virtual CPU devices time-slice the
+host's cores, so the step cost is core-capped capacity + the full
+multi-process SPMD machinery (per-step cross-process psum included) — an
+upper bound on the machinery's cost, not a device or interconnect rate.
 
 Usage: python scripts/multiproc_bench.py [--k 4] [--size 512] [--octaves 3]
 """
@@ -25,8 +23,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gpgpuraytrace_tpu.parallel.launch import launch_local_processes
-from gpgpuraytrace_tpu.utils.timing import process_salt_base
+from gpgpuraytrace.parallel.launch import launch_local_processes
+from gpgpuraytrace.utils.timing import process_salt_base
 
 _WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "multihost_worker.py")
@@ -76,8 +74,8 @@ def main():
         "per_process": timed,
         "ms_per_step": max(t["ms_per_step"] for t in timed),
         "physical_cores": cores,
-        "note": "CPU/DCN-analogue on localhost gRPC; core-capped capacity "
-                "— machinery upper bound, not an ICI/DCN measurement",
+        "note": "CPU processes on localhost gRPC; core-capped capacity "
+                "— machinery upper bound, not a device measurement",
     }))
 
 

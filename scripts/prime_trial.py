@@ -2,12 +2,8 @@
 vs the unprimed chunked march — speed (wall-ladder differencing) + quality
 vs the 1024-step dense oracle, in one run.
 
-Motivation (round 5): the march is issue-bound per executed step, ops/step
-was cut twice this round (exact transforms −10.7%, 2-stage hash −12.3%),
-and the kernel counter measures the shipping config at 31.2 executed steps
-per ray against 12.05 useful — a 2.59× divergence tax that compaction
-cannot harvest (measured 0.67×, BASELINE.md). Priming attacks the USEFUL
-step count too: a (H/ds, W/ds) coarse march costs ~1/ds² of the frame, and
+Motivation: the march's cost is its executed steps. Priming attacks the
+USEFUL step count: a (H/ds, W/ds) coarse march costs ~1/ds² of the frame, and
 starting every fine ray at prime_margin × its 3×3 coarse-neighborhood
 minimum skips the empty-space march entirely (all-miss neighborhoods skip
 the fine march altogether). Not certified — features thinner than the
@@ -34,21 +30,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.kernels.trace import _render_pallas_raw
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.kernels.trace import _render_pallas_raw
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-jax.config.update(
-    "jax_compilation_cache_dir", os.path.join(_REPO, ".jax_cache")
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from gpgpuraytrace.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 
 def time_forward(scene, cfg):
-    """40→80-frame wall ladder (the trusted instrument at ~2 ms/frame;
-    see BASELINE.md "Timing discipline"). The primed render's coarse pass
-    runs inside the same jit — the ladder times the honest end-to-end
-    frame including the prepass."""
+    """40→80-frame wall ladder: the slope cancels the fixed per-dispatch
+    cost. The primed render's coarse pass runs inside the same jit — the
+    ladder times the end-to-end frame including the prepass."""
     @jax.jit
     def run(salt, n):
         def body(i, acc):
@@ -67,7 +60,7 @@ def time_forward(scene, cfg):
         float(run(jnp.float32(salt), n))
         return time.perf_counter() - t0
 
-    from gpgpuraytrace_tpu.utils.timing import process_salt_base
+    from gpgpuraytrace.utils.timing import process_salt_base
     base = process_salt_base()
     timed(40, base + 800.0)  # warm
     t_40 = min(timed(40, base + 100.0 * r) for r in range(1, 3))
@@ -76,7 +69,7 @@ def time_forward(scene, cfg):
 
 
 def exec_steps(scene, cfg):
-    """Kernel-measured whole-tile executed steps/ray (the debug_steps
+    """Kernel-measured per-block executed steps/ray (the debug_steps
     counter; covers the FINE march only — the coarse pass's own steps are
     not in this number, its cost shows up in the wall ladder)."""
     out = _render_pallas_raw(scene, cfg, debug_steps=True)
@@ -92,7 +85,7 @@ def main():
                     default="4:0.8,4:0.9,4:0.95,8:0.9")
     ap.add_argument("--volumetric", action="store_true")
     ap.add_argument("--rough", action="store_true",
-                    help="the round-4 robustness-table rough terrain "
+                    help="the rough-terrain robustness case "
                     "(amplitude decay 0.65, height_scale 8) — the regime "
                     "where relax already mis-renders; priming must not "
                     "compound it")
@@ -114,7 +107,7 @@ def main():
             ),
         )
     base = dict(height=n, width=n, max_steps=128, num_octaves=args.octaves,
-                use_pallas=True, tile_h=16, volumetric=args.volumetric)
+                use_pallas=True, volumetric=args.volumetric)
 
     gt_cfg = RenderConfig(**base | {"max_steps": 1024}, march_mode="fixed",
                           step_relax=0.2 if args.volumetric else 0.35,
@@ -134,7 +127,7 @@ def main():
         # ds=0 must PIN prime off: an empty kw would leave prime_ds=None,
         # which auto-resolves to the shipping default (8) since priming
         # became the default — the "unprimed baseline" would silently be
-        # primed (code-review round 5).
+        # primed.
         kw = {"prime_ds": 0} if ds == 0 else {
             "prime_ds": ds, "prime_margin": margin}
         cfg = RenderConfig(**base, **kw)

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from gpgpuraytrace_tpu.models.scene import Camera
-from gpgpuraytrace_tpu.ops.camera import camera_basis, generate_rays
+from gpgpuraytrace.models.scene import Camera
+from gpgpuraytrace.ops.camera import camera_basis, generate_rays
 
 
 def _cam(yaw=0.0, pitch=0.0, fov=jnp.pi / 2):

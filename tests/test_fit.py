@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.ops.fit import fit, partition_scene, perturb_scene
-from gpgpuraytrace_tpu.ops.render import render_jax
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.ops.fit import fit, partition_scene, perturb_scene
+from gpgpuraytrace.ops.render import render_jax
 
 CFG = RenderConfig(height=48, width=64, max_steps=64, num_octaves=2, use_pallas=False)
 
@@ -88,7 +88,7 @@ def test_partition_scene_excludes_int_and_frozen():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from gpgpuraytrace_tpu.utils.checkpoint import load_pytree, save_pytree
+    from gpgpuraytrace.utils.checkpoint import load_pytree, save_pytree
 
     scene = default_scene(num_octaves=3)
     path = os.path.join(tmp_path, "scene.npz")
@@ -147,7 +147,7 @@ def test_fit_resume_without_checkpoint_starts_fresh(tmp_path):
 
 
 def test_flythrough_frames():
-    from gpgpuraytrace_tpu.ops.flythrough import fly_frames
+    from gpgpuraytrace.ops.flythrough import fly_frames
 
     scene = default_scene(num_octaves=2)
     cfg = dataclasses.replace(CFG, height=32, width=32, max_steps=32)

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.ops.fd_check import fd_check_scalar
-from gpgpuraytrace_tpu.ops.render import render_jax
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.ops.fd_check import fd_check_scalar
+from gpgpuraytrace.ops.render import render_jax
 
 CFG = RenderConfig(height=48, width=64, max_steps=96, num_octaves=2, use_pallas=False)
 

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpgpuraytrace_tpu.models.scene import NoiseParams, RenderConfig
-from gpgpuraytrace_tpu.ops.march import march, march_from_saved, march_with_stats
+from gpgpuraytrace.models.scene import NoiseParams, RenderConfig
+from gpgpuraytrace.ops.march import march, march_from_saved, march_with_stats
 
 
 def _flat_noise(height=0.0):
@@ -163,7 +163,7 @@ def test_volumetric_warped_bump_march_vs_dense_ground_truth():
     through the full 3D-warped volumetric field, the march + Newton polish
     must land on the SAME first root that a 20k-sample dense scan + bisection
     certifies (and agree on hit/miss)."""
-    from gpgpuraytrace_tpu.ops.field import field
+    from gpgpuraytrace.ops.field import field
 
     noise = _bumpy_noise(num_octaves=2, warp=0.6)
     cfg = dataclasses.replace(
@@ -205,7 +205,7 @@ def test_volumetric_warped_bump_march_vs_dense_ground_truth():
             # would mean the march skipped the real surface and stays a
             # failure.
             f_here = float(f_of_t(jnp.float32(tk)))
-            from gpgpuraytrace_tpu.ops.march import _RESIDUAL_SLACK
+            from gpgpuraytrace.ops.march import _RESIDUAL_SLACK
             band = _RESIDUAL_SLACK * cfg.hit_eps * tk
             assert tk < t_ref and abs(f_here) <= band, (
                 f"ray {k}: march t {tk:.4f} vs certified root {t_ref:.4f}, "

@@ -13,7 +13,7 @@ import re
 
 import pytest
 
-from gpgpuraytrace_tpu.parallel.launch import launch_local_processes
+from gpgpuraytrace.parallel.launch import launch_local_processes
 
 _WORKER = os.path.join(
     os.path.dirname(__file__), "..", "scripts", "multihost_worker.py"

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpgpuraytrace_tpu.ops.noise import fbm2, noise2
+from gpgpuraytrace.ops.noise import fbm2, noise2
 
 
 def _grid(n=64, lo=-10.0, hi=10.0):
@@ -91,7 +91,7 @@ def test_fbm2_amplitude_gradient():
         return v
 
     g = jax.grad(f)(a)
-    from gpgpuraytrace_tpu.ops.noise import octave_rotation
+    from gpgpuraytrace.ops.noise import octave_rotation
 
     c1, s1 = octave_rotation(1)  # octave 0 rotation is identity (cos 0 = 1)
     n0, _, _ = noise2(x, z, 7)
@@ -99,42 +99,19 @@ def test_fbm2_amplitude_gradient():
     np.testing.assert_allclose(np.asarray(g), np.asarray([n0, n1]), rtol=1e-5, atol=1e-6)
 
 
-def test_noise2_value_bf16_close_to_f32():
-    # The bf16 march trial's precision contract (ops/noise.py
-    # noise2_value_bf16): hashing is bit-identical, cell fractions are f32,
-    # only the [0,1]-bounded blend math is bf16 — so the value error is a
-    # few 1e-3 absolute, never a lattice-cell-scale blowup.
-    from gpgpuraytrace_tpu.ops.noise import noise2_value, noise2_value_bf16
-
-    x, z = _grid(n=64, lo=-50.0, hi=50.0)  # far coordinates: the bf16-fatal
-    # regime if positions were ever cast down
-    v32 = np.asarray(noise2_value(x, z, 7))
-    v16 = np.asarray(noise2_value_bf16(x, z, 7))
-    # Bulk error is a few 1e-3; the tail (rare near-degenerate lattice
-    # gradients + blend cancellation) is measured ≲0.07 — bounded, and the
-    # f32 Newton polish in the march absorbs it.
-    assert np.abs(v32 - v16).max() < 0.1
-    assert np.abs(v32 - v16).mean() < 8e-3
-    # Deterministic
-    np.testing.assert_array_equal(
-        np.asarray(noise2_value_bf16(x, z, 7)), v16
-    )
-
-
-# --- noise-v2 regression guards (VERDICT r3 item 4) -------------------------
-# Round 3 made two load-bearing claims about the v2 terrain noise:
+# --- noise-v2 regression guards ----------------------------------------------
+# Two load-bearing claims about the v2 terrain noise:
 # (a) the 8-direction exactly-unit gradient set is statistically isotropic,
 # (b) per-octave lattice rotation repairs the amplitude-fit landscape —
-#     without it Adam traps in a local minimum at large amplitude error
-#     (BASELINE.md "Noise v2"). Both were session-log evidence only; these
-# tests pin them so a future noise tweak cannot silently re-break the judged
+#     without it Adam traps in a local minimum at large amplitude error.
+# These tests pin them so a future noise tweak cannot silently re-break the judged
 # config-3 fit capability.
 
 
 def test_grad2_isotropy_statistics():
     """8-direction set over many cells: exactly unit, all 8 directions
     near-uniformly represented, second moment isotropic (E[ggT] = I/2)."""
-    from gpgpuraytrace_tpu.ops.noise import _grad2, hash2
+    from gpgpuraytrace.ops.noise import _grad2, hash2
 
     ix, iz = jnp.meshgrid(
         jnp.arange(-128, 128), jnp.arange(-128, 128), indexing="ij"
@@ -167,7 +144,7 @@ def test_grad2_isotropy_statistics():
         assert 0.10 < agree < 0.15, (
             f"adjacent-cell gradient agreement {agree:.3f} along axis "
             f"{axis} (ideal 0.125) — the hash correlates neighboring "
-            f"lattice cells; see BASELINE.md 'Hash-rounds trial'"
+            f"lattice cells; see ops/noise.py:_mix"
         )
 
 
@@ -175,7 +152,7 @@ def test_octave_rotation_angles_distinct():
     # Golden-angle increments: the first 8 octave rotations are pairwise
     # distinct (mod 2pi) by a wide margin, so the effective gradient set is
     # 8 x octaves directions, not 8.
-    from gpgpuraytrace_tpu.ops.noise import octave_rotation
+    from gpgpuraytrace.ops.noise import octave_rotation
 
     angles = [np.arctan2(octave_rotation(i)[1], octave_rotation(i)[0])
               for i in range(8)]
@@ -195,10 +172,10 @@ def _amp_fit_from_trap_start(rotation_fn=None, steps=80, round3_hash=False):
     measured — see test_rotation_guard_is_sensitive)."""
     import dataclasses
 
-    import gpgpuraytrace_tpu.ops.noise as noise_mod
-    from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-    from gpgpuraytrace_tpu.ops.fit import fit
-    from gpgpuraytrace_tpu.ops.render import render
+    import gpgpuraytrace.ops.noise as noise_mod
+    from gpgpuraytrace.models.scene import RenderConfig, default_scene
+    from gpgpuraytrace.ops.fit import fit
+    from gpgpuraytrace.ops.render import render
 
     orig = noise_mod.octave_rotation
     orig_mix = noise_mod._mix
@@ -255,7 +232,7 @@ def test_rotation_guard_is_sensitive():
     per its own protocol: on the ROUND-3 noise (full murmur finalizer,
     low-bit decode — bit-reproduced via round3_hash), stubbing
     octave_rotation to identity leaves the fit trapped above 4% error
-    (measured 8.2% — the BASELINE.md local minimum). This proves the
+    (measured 8.2% — the local minimum). This proves the
     harness can detect a trapped landscape, so the <2% pass above is a
     real claim, not a vacuous one. On the round-5 2-stage hash the
     identity-rotation trap measurably VANISHED in this toy family (probed
@@ -267,7 +244,7 @@ def test_rotation_guard_is_sensitive():
     assert err > 0.04, (
         f"identity-rotation fit on the round-3 noise reached {err:.4f} — "
         "the reference trap vanished; re-measure the landscape claim "
-        "(BASELINE.md 'Noise v2')"
+        "(the rotation-free local minimum)"
     )
     # And the round-3 trap is specifically a ROTATION problem, not a hash
     # problem: the same round-3 noise WITH rotation converges.
@@ -278,7 +255,7 @@ def test_corner_hash_sharing_bit_exact():
     """Round-5 ops reduction: the shared-linear-base corner hashes must be
     BIT-identical to hashing each corner coordinate separately (int32
     wraparound distributivity — the transform's entire correctness claim)."""
-    from gpgpuraytrace_tpu.ops.noise import (
+    from gpgpuraytrace.ops.noise import (
         _corner_hashes2, _corner_hashes3, hash2, hash3,
     )
 
@@ -304,7 +281,7 @@ def test_raw_grads_match_normalized():
     """_grad2/_grad3 == their raw variants x the deferred normalization
     (the factoring is linear, so applying 1/sqrt(k) once at the end of a
     noise evaluation is exact up to f32 rounding)."""
-    from gpgpuraytrace_tpu.ops.noise import (
+    from gpgpuraytrace.ops.noise import (
         _INV_SQRT2, _INV_SQRT5, _grad2, _grad2_raw, _grad3, _grad3_raw,
         hash2,
     )

@@ -7,8 +7,8 @@ import dataclasses
 import jax.numpy as jnp
 import pytest
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.utils.profiling import (
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.utils.profiling import (
     ROUGHNESS_WARN_THRESHOLD, march_stats, roughness_proxy, warn_if_rough,
 )
 
@@ -17,7 +17,7 @@ CFG = RenderConfig(height=64, width=64, max_steps=128, num_octaves=3,
 
 
 def _rough_scene(octaves: int = 3, height_scale: float = 8.0):
-    """The BASELINE.md robustness-table rough variant: slow amplitude decay
+    """The rough robustness case: slow amplitude decay
     × large height_scale (27.5% of pixels measured off at relax 1.0)."""
     scene = default_scene(num_octaves=octaves)
     return dataclasses.replace(
@@ -75,8 +75,8 @@ def test_rough_scene_warns():
 def test_fit_warns_on_rough_scene():
     """The warning is wired into the library fit loop, not just the CLI."""
     import jax
-    from gpgpuraytrace_tpu.ops.fit import fit
-    from gpgpuraytrace_tpu.ops.render import render_jit
+    from gpgpuraytrace.ops.fit import fit
+    from gpgpuraytrace.ops.render import render_jit
 
     cfg = RenderConfig(height=32, width=32, max_steps=32, num_octaves=2,
                        use_pallas=False)

@@ -1,6 +1,6 @@
-"""Pallas kernel vs pure-JAX reference, in interpreter mode on CPU
-(SURVEY.md §5 kernel level; the real-TPU parity run happens in bench/verify
-sessions on hardware — same code path minus ``interpret``)."""
+"""Pallas kernel (Triton route) vs pure-JAX reference, in interpreter mode
+on CPU (SURVEY.md §5 kernel level; the compiled kernel's parity on the GPU
+is a phase of chip_smoke.py — same code path minus ``interpret``)."""
 
 import dataclasses
 
@@ -8,11 +8,11 @@ import jax
 import numpy as np
 import pytest
 
-from gpgpuraytrace_tpu.kernels.trace import _render_pallas_raw, render_pallas
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.ops.render import render_jax
+from gpgpuraytrace.kernels.trace import _render_pallas_raw, render_pallas
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.ops.render import render_jax
 
-# Tile-aligned small size: TILE_H=32, TILE_W=128.
+# Block-aligned small size (8x16 blocks).
 CFG = RenderConfig(
     height=64,
     width=128,
@@ -56,9 +56,9 @@ def test_pallas_matches_pure_jax_image(scene, pallas_out):
 
 
 def test_pallas_checkpoint_t_hit_match(scene, pallas_out):
-    from gpgpuraytrace_tpu.ops.camera import generate_rays
-    from gpgpuraytrace_tpu.ops.march import march_primed
-    from gpgpuraytrace_tpu.ops.render import prime_map_jax
+    from gpgpuraytrace.ops.camera import generate_rays
+    from gpgpuraytrace.ops.march import march_primed
+    from gpgpuraytrace.ops.render import prime_map_jax
 
     _, t_pal, hit_pal = pallas_out
     o, d = generate_rays(scene.camera, CFG.height, CFG.width)
@@ -121,7 +121,7 @@ def test_pallas_bwd_kernel_full_scene_grads(scene):
     channel)."""
     import jax.numpy as jnp
 
-    from gpgpuraytrace_tpu.ops.fit import partition_scene
+    from gpgpuraytrace.ops.fit import partition_scene
 
     leaves, merge = partition_scene(scene, trainable=lambda name: True)
 
@@ -145,20 +145,18 @@ def test_pallas_bwd_kernel_full_scene_grads(scene):
 @pytest.mark.parametrize(
     "kw",
     [
-        {"march_mode": "lod"},
-        {"march_mode": "compact", "compact_budget": 16},
         {"march_eps_scale": 4.0},
         {"step_floor_t": 0.0},
         {"step_relax": 0.7, "newton_iters": 4},  # the round-3 march regime
     ],
-    ids=["lod", "compact", "loose_eps", "classic_no_floor", "relax07"],
+    ids=["loose_eps", "classic_no_floor", "relax07"],
 )
 def test_march_variants_match_baseline(scene, pallas_out, kw):
-    """March variants (coarse-to-fine LOD; the classic strict-epsilon march)
-    must agree with the default (loosened eps + Newton polish + residual
-    verdict) except on a small silhouette-adjacent pixel fraction — different
-    sample trajectories legitimately bracket grazing hits differently (see
-    assert_mostly_close)."""
+    """March variants (the loosened-eps preview knob; the classic crawl
+    without a step floor; the conservative relax) must agree with the
+    default except on a small silhouette-adjacent pixel fraction —
+    different sample trajectories legitimately bracket grazing hits
+    differently (see assert_mostly_close)."""
     base, _, _ = pallas_out
     var = _render_pallas_raw(scene, dataclasses.replace(CFG, **kw))[0]
     assert_mostly_close(base, var, atol=5e-2, frac=0.97, msg=f"variant {kw}")
@@ -166,133 +164,60 @@ def test_march_variants_match_baseline(scene, pallas_out, kw):
     assert_mostly_close(base, var, atol=1e-3, frac=0.95, msg=f"variant-bulk {kw}")
 
 
-def test_compact_march_matches_chunked_exactly(scene, pallas_out):
-    """Two-phase compaction (VERDICT r3 item 1) is a scheduling change, not
-    a numeric one: per-lane march trajectories are identical (phase 2
-    resumes from phase 1's exact t/prev state), so image, checkpoint, and
-    hit verdicts must agree to polish tolerance — far tighter than the
-    cross-variant bound above."""
-    # Compare against an UNPRIMED chunked render: compaction resolves
-    # prime_ds to 0 (its two-phase start logic supersedes priming), so the
-    # per-lane-identical contract holds against the unprimed march.
-    base, t0, hit0 = _render_pallas_raw(
-        scene, dataclasses.replace(CFG, prime_ds=0)
-    )
-    cc = dataclasses.replace(CFG, march_mode="compact", compact_budget=16)
-    img, t1, hit1 = _render_pallas_raw(scene, cc)
-    assert (np.asarray(hit0) != np.asarray(hit1)).mean() == 0.0
-    assert_mostly_close(base, img, atol=1e-4, frac=1.0, msg="compact image")
-    # Checkpoint t agrees wherever both hit (Newton converges to the same
-    # root from the slightly different bracket).
-    m = np.asarray(hit0) & np.asarray(hit1)
-    np.testing.assert_allclose(
-        np.asarray(t0)[m], np.asarray(t1)[m], atol=5e-3, rtol=1e-4
-    )
-
-
-def test_compact_march_gradients_match(scene):
-    """The compact forward feeds the same custom-VJP backward (which never
-    re-marches); grads w.r.t. every float leaf must match the chunked path."""
-    import jax.numpy as jnp
-
-    from gpgpuraytrace_tpu.ops.fit import partition_scene
-
-    # prime_ds=0: compact resolves priming off (its own two-phase start),
-    # so the chunked side must be unprimed for grads to agree exactly.
-    cfg = dataclasses.replace(CFG, height=32, max_steps=32, prime_ds=0)
-    cc = dataclasses.replace(cfg, march_mode="compact", compact_budget=8)
-    leaves, merge = partition_scene(scene, trainable=lambda name: True)
-
-    def make_loss(c):
-        return lambda lv: jnp.mean(render_pallas(merge(lv), c) ** 2)
-
-    g0 = jax.grad(make_loss(cfg))(leaves)
-    g1 = jax.grad(make_loss(cc))(leaves)
-    for a, b in zip(g0, g1):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=2e-4, atol=1e-6
-        )
-
-
 def test_march_chunk_must_divide_max_steps():
-    # ADVICE r2: a chunk that does not divide max_steps would silently march
-    # past max_steps; RenderConfig rejects it at construction.
+    # A chunk that does not divide max_steps would silently march past
+    # max_steps; RenderConfig rejects it at construction for the kernel.
     with pytest.raises(ValueError, match="march_chunk"):
-        RenderConfig(max_steps=128, march_chunk=7)
-    # VERDICT r3 weak #4: march_chunk=0 means "kernel default" (CHUNK=8);
-    # the effective chunk is validated too, so 0 is no longer a back door
-    # around the divisibility check.
+        RenderConfig(max_steps=128, march_chunk=7, use_pallas=True)
+    # march_chunk=0 means the default chunk (4); the effective chunk is
+    # validated too, so 0 is not a back door around the check.
     with pytest.raises(ValueError, match="effective"):
-        RenderConfig(max_steps=100, march_chunk=0)
+        RenderConfig(max_steps=102, march_chunk=0, use_pallas=True)
     with pytest.raises(ValueError, match="march_chunk"):
         RenderConfig(march_chunk=-1)
-    # ADVICE r3: configs that never run the chunked Pallas march are not
-    # subject to the divisibility constraint — a pure-XLA CPU render with
-    # --max-steps 100 is valid, as is a fixed-mode Pallas march.
+    # Configs that never run the chunked kernel march are not subject to
+    # the divisibility constraint — a pure-XLA render with --max-steps 100
+    # is valid, as is a fixed-mode kernel march.
     RenderConfig(max_steps=100, use_pallas=False)
-    RenderConfig(max_steps=100, march_mode="fixed")
-
-
-def test_bf16_march_close_to_f32(scene):
-    # RenderConfig.march_bf16 (measured-perf trial knob): image within a few
-    # 1e-3 except marginal silhouette pixels, hit flips a small fraction.
-    cfg16 = dataclasses.replace(CFG, march_bf16=True)
-    img32, _, hit32 = _render_pallas_raw(scene, CFG)
-    img16, _, hit16 = _render_pallas_raw(scene, cfg16)
-    d = np.abs(np.asarray(img32) - np.asarray(img16))
-    flips = (np.asarray(hit32) != np.asarray(hit16)).mean()
-    assert d.mean() < 5e-3, f"bf16 march mean image err {d.mean():.2e}"
-    assert flips < 0.01, f"bf16 march flipped {flips:.3%} of hit verdicts"
+    RenderConfig(max_steps=100, march_mode="fixed", use_pallas=True)
 
 
 def test_debug_steps_counter(scene, pallas_out):
-    """In-kernel executed-step counter (VERDICT r4 item 4): per tile it must
+    """In-kernel executed-step counter, one element per block: it must
     (a) not change the rendered outputs, (b) bound every lane's useful steps
     from above within one chunk, and (c) read exactly max_steps in fixed
-    mode. This is the counter scripts/march_counter.py measures the
-    divergence tax with on hardware."""
-    from gpgpuraytrace_tpu.ops.camera import generate_rays
-    from gpgpuraytrace_tpu.ops.march import march_with_stats
+    mode. This is the divergence-tax counter bench.py reports."""
+    from gpgpuraytrace.kernels.trace import pallas_prime_map
+    from gpgpuraytrace.ops.camera import generate_rays
+    from gpgpuraytrace.ops.march import march_with_stats
 
     color_ref, t_ref2, hit_ref2 = pallas_out
     color, t, hit, steps = _render_pallas_raw(scene, CFG, debug_steps=True)
     np.testing.assert_array_equal(np.asarray(color), np.asarray(color_ref))
     np.testing.assert_array_equal(np.asarray(t), np.asarray(t_ref2))
     steps = np.asarray(steps)
-    grid_h, grid_w = CFG.height // CFG.tile_h, CFG.width // 128
+    bh, bw = CFG.block_h, CFG.block_w
+    grid_h, grid_w = CFG.height // bh, CFG.width // bw
     assert steps.shape == (grid_h, grid_w)
     chunk = CFG.march_chunk or 8
     assert (steps % chunk == 0).all() and (steps <= CFG.max_steps).all()
 
-    # Lane-level cross-check: each tile executed at least its own lanes' max
-    # useful count (whole-tile early exit can only overshoot by < 1 chunk,
-    # plus 1 step for the final hit-detection pass). The lane stats must
-    # march from the SAME prime map the kernel used (the Pallas coarse
+    # Lane-level cross-check: each block executed at least its own lanes'
+    # max useful count (block-wide early exit can only overshoot by < 1
+    # chunk, plus 1 step for the final hit-detection pass). The lane stats
+    # march from the SAME prime map the kernel used (the kernel coarse
     # pass), or a coarse-pixel difference between implementations could
     # break the bound.
-    from gpgpuraytrace_tpu.ops.march import coarse_prime_cfg, prime_from_coarse
-
-    _, t_c, _ = _render_pallas_raw(
-        scene, coarse_prime_cfg(CFG), -1.0, CFG.height // CFG.prime_ds + 2
-    )
-    t0p = prime_from_coarse(t_c, CFG)
+    t0p = pallas_prime_map(scene, CFG)
     o, d = generate_rays(scene.camera, CFG.height, CFG.width)
     _, _, lane = jax.jit(march_with_stats, static_argnums=0)(
         dataclasses.replace(CFG, use_pallas=False, interpret=False),
         o, d, scene.noise, t0p,
     )
-    tile_max = np.asarray(lane).reshape(
-        grid_h, CFG.tile_h, grid_w, 128
-    ).max(axis=(1, 3))
-    assert (steps >= tile_max).all()
-    assert (steps <= tile_max + 2 * chunk).all()
+    block_max = np.asarray(lane).reshape(grid_h, bh, grid_w, bw).max(axis=(1, 3))
+    assert (steps >= block_max).all()
+    assert (steps <= block_max + 2 * chunk).all()
 
     cfg_fixed = dataclasses.replace(CFG, march_mode="fixed")
     *_, sf = _render_pallas_raw(scene, cfg_fixed, debug_steps=True)
     assert (np.asarray(sf) == CFG.max_steps).all()
-
-
-def test_debug_steps_rejected_for_compact(scene):
-    cfgc = dataclasses.replace(CFG, march_mode="compact", compact_budget=32)
-    with pytest.raises(ValueError, match="debug_steps"):
-        _render_pallas_raw(scene, cfgc, debug_steps=True)

@@ -1,7 +1,8 @@
-"""Depth-priming unit tests (round 5): the prime-map function's contract,
-the primed march's agreement with the unprimed one, and the primed path's
-gradients. The speed claims live in scripts/prime_trial.py (TPU); these
-tests pin the SEMANTICS on CPU."""
+"""Depth-priming unit tests: the prime-map function's contract, the primed
+march's agreement with the unprimed one, the primed path's gradients, and
+the row-band rules (whole coarse rows) both prime paths enforce. The
+quality claims live in scripts/prime_trial.py; these tests pin the
+SEMANTICS on CPU."""
 
 import dataclasses
 
@@ -10,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.ops.march import prime_from_coarse
-from gpgpuraytrace_tpu.ops.render import prime_map_jax, render_jax
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.ops.march import prime_from_coarse
+from gpgpuraytrace.ops.render import prime_map_jax, render_jax
 
 CFG = RenderConfig(
     height=64, width=128, max_steps=64, num_octaves=3, use_pallas=False,
@@ -67,7 +68,7 @@ def test_primed_gradients_match_fd():
     """AD through the primed path vs central finite differences on
     hit-stable pixels — the judged gradient contract, on the primed
     render."""
-    from gpgpuraytrace_tpu.ops.fd_check import fd_check_scalar
+    from gpgpuraytrace.ops.fd_check import fd_check_scalar
 
     cfg = dataclasses.replace(
         CFG, height=48, width=64, max_steps=96, num_octaves=2, prime_ds=4
@@ -101,8 +102,8 @@ def test_march_with_stats_requires_prime_map_when_primed():
     """A primed config must not silently march unprimed in the stats path
     (the measurement-confounding hazard code review caught when priming
     became the default)."""
-    from gpgpuraytrace_tpu.ops.camera import generate_rays
-    from gpgpuraytrace_tpu.ops.march import march_with_stats
+    from gpgpuraytrace.ops.camera import generate_rays
+    from gpgpuraytrace.ops.march import march_with_stats
 
     scene = default_scene(num_octaves=2)
     cfg = dataclasses.replace(CFG, use_pallas=False)
@@ -134,7 +135,7 @@ def test_primed_supersample_composes():
     """SSAA renders at k× inside render(); the carried prime_ds must stay
     valid at the scaled resolution and the downsample must see primed
     sub-pixels (smoke: shape + finiteness + sky/terrain structure)."""
-    from gpgpuraytrace_tpu.ops.render import render
+    from gpgpuraytrace.ops.render import render
 
     cfg = dataclasses.replace(CFG, supersample=2)
     img = np.asarray(render(default_scene(num_octaves=3), cfg))
@@ -142,3 +143,41 @@ def test_primed_supersample_composes():
     assert np.isfinite(img).all()
     top = img[:4].mean(axis=(0, 1))
     assert top[2] > top[0]  # sky stays blue-dominant
+
+
+def _prime_paths():
+    from gpgpuraytrace.kernels.trace import pallas_prime_map
+
+    pcfg = dataclasses.replace(CFG, use_pallas=True, interpret=True)
+    return {"xla": (prime_map_jax, CFG), "kernel": (pallas_prime_map, pcfg)}
+
+
+@pytest.mark.parametrize("path", ["xla", "kernel"])
+@pytest.mark.parametrize(
+    "row0, local_height, match",
+    [(0.0, 30, "local render height"), (2.0, 32, "first row")],
+    ids=["band_height", "band_row0"],
+)
+def test_prime_band_must_be_whole_coarse_rows(path, row0, local_height, match):
+    """Both prime paths reject a band whose height or first row is not a
+    multiple of prime_ds (here 4) — the coarse grid would shift by a
+    fraction of a coarse pixel and silently break band == full frame."""
+    fn, cfg = _prime_paths()[path]
+    with pytest.raises(ValueError, match=match):
+        fn(default_scene(3), cfg, row0, local_height)
+
+
+def test_band_prime_cfg_four_way_4k():
+    """4K over four cards: 540-row bands, which the default prime_ds=8 does
+    not divide — the band config primes at 4 (divides 540, 2160, 3840);
+    bands that 8 divides keep 8; a band no factor divides turns priming
+    off."""
+    from gpgpuraytrace.ops.march import band_prime_cfg
+
+    cfg = RenderConfig(height=2160, width=3840)
+    assert cfg.prime_ds == 8
+    band = band_prime_cfg(cfg, 2160 // 4)
+    assert band.prime_ds == 4 and 540 % band.prime_ds == 0
+    assert band_prime_cfg(cfg, 2160 // 2) is cfg  # 1080 % 8 == 0
+    odd = RenderConfig(height=72 * 8, width=512)
+    assert band_prime_cfg(odd, 9).prime_ds == 0

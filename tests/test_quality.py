@@ -1,8 +1,8 @@
-"""Shipping-default march-quality harness (VERDICT r4 next-item 1).
+"""Shipping-default march-quality harness.
 
-The round-4 march defaults (step_relax 1.0, newton_iters 3, step_floor_t
-4e-3; volumetric relax 0.9) were validated against dense oracles in session
-sweeps (BASELINE.md "step_relax 1.0" / "Volumetric relax") — but the frozen
+The march defaults (step_relax 1.0, newton_iters 3, step_floor_t 4e-3;
+volumetric relax 0.9) were validated against dense oracles in sweeps
+(scripts/relax_sweep.py) — but the frozen
 goldens pin the *round-2* regime, so nothing in the suite previously failed
 if a change degraded DEFAULT-path quality (Pallas-vs-XLA parity passes when
 both are wrong together). These tests rebuild the oracle comparison
@@ -35,9 +35,9 @@ import jax
 import numpy as np
 import pytest
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.ops.camera import generate_rays
-from gpgpuraytrace_tpu.ops.march import march_with_stats
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.ops.camera import generate_rays
+from gpgpuraytrace.ops.march import march_with_stats
 
 # Hit-distance error above this (world units) counts a pixel as "off".
 T_ERR = 0.05
@@ -54,7 +54,7 @@ def _march(cfg, o, d, noise, scene=None):
     otherwise the harness would silently gate the unprimed march while the
     product ships the primed one."""
     if cfg.prime_ds:
-        from gpgpuraytrace_tpu.ops.render import prime_map_jax
+        from gpgpuraytrace.ops.render import prime_map_jax
 
         t0p = jax.jit(prime_map_jax, static_argnums=1)(scene, cfg)
         t, hit, _ = jax.jit(march_with_stats, static_argnums=0)(

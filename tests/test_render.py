@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.ops.render import render_jax, render_jit
-from gpgpuraytrace_tpu.ops.shade import tonemap
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.ops.render import render_jax, render_jit
+from gpgpuraytrace.ops.shade import tonemap
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "config1_128.npy")
 
@@ -55,8 +55,8 @@ def test_render_jit_matches_eager(config1_image):
 
 
 def test_golden_image(config1_image):
-    """Frozen stage-1 golden (BASELINE.md: image-match anchor until the
-    reference source materializes). Regenerate with scripts/make_golden.py."""
+    """Frozen stage-1 golden (the image-match anchor until the reference
+    source materializes). Regenerate with scripts/make_golden.py."""
     if not os.path.exists(GOLDEN):
         pytest.skip("golden not generated yet")
     golden = np.load(GOLDEN)
@@ -86,7 +86,7 @@ def test_supersample_render():
 
     cfg = RenderConfig(height=32, width=32, max_steps=48, num_octaves=1, use_pallas=False)
     cfg_ss = dataclasses.replace(cfg, supersample=2)
-    from gpgpuraytrace_tpu.ops.render import render
+    from gpgpuraytrace.ops.render import render
 
     scene = default_scene(num_octaves=1)
     img = np.asarray(render(scene, cfg))

@@ -10,11 +10,11 @@ import numpy as np
 import optax
 import pytest
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.ops.fit import partition_scene
-from gpgpuraytrace_tpu.ops.render import render_jax
-from gpgpuraytrace_tpu.parallel.mesh import make_mesh
-from gpgpuraytrace_tpu.parallel.sharded import (
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.ops.fit import partition_scene
+from gpgpuraytrace.ops.render import render_jax
+from gpgpuraytrace.parallel.mesh import make_mesh
+from gpgpuraytrace.parallel.sharded import (
     make_sharded_fit_step,
     shard_target,
     sharded_loss_and_grad,
@@ -23,8 +23,8 @@ from gpgpuraytrace_tpu.parallel.sharded import (
 
 # Small march budget and a 4-device sub-mesh: shard_map + value_and_grad
 # compile time on the CPU test backend grows steeply with march length and
-# device count; correctness is independent of both (dryrun_multichip and the
-# TPU bench exercise the full-size path).
+# device count; correctness is independent of both (dryrun_multichip and
+# chip_smoke.py --four exercise the full-size path).
 CFG = RenderConfig(height=16, width=32, max_steps=8, num_octaves=2, use_pallas=False)
 
 

@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from gpgpuraytrace_tpu.utils.timing import job_salt_base, process_salt_base
+from gpgpuraytrace.utils.timing import job_salt_base, process_salt_base
 
 
 def test_process_salt_base_is_small_grid_fraction():
@@ -28,7 +28,7 @@ def test_job_salt_base_shared_and_distinct():
 
 
 def test_aot_cache_key_sensitivity():
-    from gpgpuraytrace_tpu.utils.aot import _cache_key
+    from gpgpuraytrace.utils.aot import _cache_key
 
     args = ([np.zeros((4,), np.float32)],)
     k1 = _cache_key("cfg-A", args)

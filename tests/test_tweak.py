@@ -7,9 +7,9 @@ import json
 import jax
 import numpy as np
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.ops.render import render
-from gpgpuraytrace_tpu.utils.tweak import (
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.ops.render import render
+from gpgpuraytrace.utils.tweak import (
     TweakWatcher,
     apply_tweaks,
     scene_variables,

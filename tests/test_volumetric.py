@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gpgpuraytrace_tpu.models.scene import RenderConfig, default_scene
-from gpgpuraytrace_tpu.ops.noise import fbm3, noise3
-from gpgpuraytrace_tpu.ops.render import render_jax
+from gpgpuraytrace.models.scene import RenderConfig, default_scene
+from gpgpuraytrace.ops.noise import fbm3, noise3
+from gpgpuraytrace.ops.render import render_jax
 
 CFG = RenderConfig(
     height=32,
@@ -88,8 +88,8 @@ def test_warp_amplitude_gradient():
     hit-stable pixels. (A whole-image loss gradient is FD-noise-dominated
     here — the warp's net pixel-loss gradient is ~1e-5 — so the honest check
     is at the hit-distance level, where the march VJP actually acts.)"""
-    from gpgpuraytrace_tpu.ops.camera import generate_rays
-    from gpgpuraytrace_tpu.ops.march import march
+    from gpgpuraytrace.ops.camera import generate_rays
+    from gpgpuraytrace.ops.march import march
 
     scene = default_scene(2, volumetric=True)
     o, d = generate_rays(scene.camera, CFG.height, CFG.width)
@@ -98,7 +98,7 @@ def test_warp_amplitude_gradient():
         noise = dataclasses.replace(scene.noise, warp_amplitude=theta)
         return march(CFG, o, d, noise)
 
-    from gpgpuraytrace_tpu.ops.field import field
+    from gpgpuraytrace.ops.field import field
 
     def residual(theta, t):
         noise = dataclasses.replace(scene.noise, warp_amplitude=theta)
@@ -138,7 +138,7 @@ def test_warp_amplitude_gradient():
 
 
 def test_volumetric_pallas_matches_pure_jax():
-    from gpgpuraytrace_tpu.kernels.trace import _render_pallas_raw
+    from gpgpuraytrace.kernels.trace import _render_pallas_raw
     from tests.test_pallas import assert_mostly_close
 
     cfg = dataclasses.replace(CFG, use_pallas=True, interpret=True)
@@ -154,8 +154,8 @@ def test_volumetric_pallas_bwd_kernel_full_scene_grads():
     WARP_AMP / WARP_FREQ packed channel (kernels/trace.py warp terms), which
     only exists under cfg.volumetric and is untested by the heightfield
     parity test in tests/test_pallas.py."""
-    from gpgpuraytrace_tpu.kernels.trace import render_pallas
-    from gpgpuraytrace_tpu.ops.fit import partition_scene
+    from gpgpuraytrace.kernels.trace import render_pallas
+    from gpgpuraytrace.ops.fit import partition_scene
 
     cfg = dataclasses.replace(CFG, use_pallas=True, interpret=True)
     scene = default_scene(2, volumetric=True)
